@@ -2,10 +2,11 @@
 
 Each fleet frame dispatches ONE vmapped preprocess+registration program and
 ONE vmapped submap-update program for all B streams, with a single async
-stats readback — so host orchestration, dispatch overhead and the link
-round trip amortize B ways.  Throughput is the serving metric:
-stream-frames per second per chip vs the single-stream pipelined replay
-(REPLAY_PL_r*.json).
+stats readback — so host orchestration, dispatch overhead and the device
+sync amortize B ways.  Throughput is the serving metric: stream-frames per
+second per card vs the single-stream pipelined replay
+(``bench_odometry_replay.py --pipelined``).  Needs a GPU; prints the card's
+name and power limit.
 
 Each stream follows its own trajectory (rotated/offset figure-8 starts) in
 the shared synthetic Velodyne world, so per-stream state independence is
@@ -46,8 +47,8 @@ from sycl_points_tpu.points.point_cloud import PointCloud, pad_capacity_for
 
 def main():
     from sycl_points_tpu.utils.compile_cache import enable_persistent_cache
+    from sycl_points_tpu.utils.device import card_line, require_gpu
 
-    enable_persistent_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--streams", type=int, default=8)
     ap.add_argument("--frames", type=int, default=40)
@@ -65,9 +66,12 @@ def main():
     ap.add_argument("--imu-hz", type=float, default=200.0)
     ap.add_argument("--json", default=None)
     args = ap.parse_args()
+    require_gpu()
+    enable_persistent_cache()
 
     B = args.streams
-    print(f"device: {jax.devices()[0]}", file=sys.stderr, flush=True)
+    print(f"device: {jax.devices()[0].device_kind}; card: {card_line()}",
+          file=sys.stderr, flush=True)
 
     world = World()
     base = figure8_trajectory(args.frames, speed=args.speed)

@@ -1,4 +1,4 @@
-"""Multi-frame LiDAR-INERTIAL odometry replay on the chip: >=60 synthetic
+"""Multi-frame LiDAR-INERTIAL odometry replay on the GPU: >=60 synthetic
 Velodyne frames plus analytically consistent synthetic IMU (400 Hz) through
 the full tightly-coupled 15-DOF pipeline
 (sycl_points_tpu/pipeline/lidar_inertial_odometry.py), exercising
@@ -8,7 +8,7 @@ evidence (reference flagship flow:
 pipeline/lidar_inertial_odometry.hpp:131-472, exercised end-to-end by
 ros2 lidar_inertial_odometry_bag_eval_node.cpp).
 
-Reports ms/frame wall, translation ATE vs ground truth, the bias-estimate
+Reports ms/frame wall (host clock around ``process``), translation ATE vs ground truth, the bias-estimate
 trajectory, preintegration reset count, and frames_ok.
 
 Usage: python benchmarks/bench_lio_replay.py [--frames 60] [--json out]
@@ -59,8 +59,8 @@ from sycl_points_tpu.pipeline.params import (
 
 def main():
     from sycl_points_tpu.utils.compile_cache import enable_persistent_cache
+    from sycl_points_tpu.utils.device import card_line, require_gpu
 
-    enable_persistent_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=60)
     ap.add_argument("--warmup", type=int, default=8)
@@ -118,8 +118,11 @@ def main():
     if args.distort and args.pipelined and args.deskew == "on":
         ap.error("--distort with IMU deskew requires the sync pipeline "
                  "(PipelinedLidarInertialOdometry rejects imu.deskew.enable)")
+    require_gpu()
+    enable_persistent_cache()
 
-    print(f"device: {jax.devices()[0]}", file=sys.stderr, flush=True)
+    print(f"device: {jax.devices()[0].device_kind}; card: {card_line()}",
+          file=sys.stderr, flush=True)
 
     world = World()
     poses = figure8_trajectory(args.frames, speed=args.speed,
@@ -187,17 +190,6 @@ def main():
         scans_np.append(pts)
     print(f"{len(scans_np)} scans generated", file=sys.stderr, flush=True)
 
-    # link floor, identically measured (see bench.py)
-    import jax.numpy as jnp
-    trivial = jax.jit(lambda x: (x * 2.0).sum())
-    ones8 = jnp.ones(8)
-    jax.device_get(trivial(ones8))
-    floors = []
-    for _ in range(16):
-        t0 = time.perf_counter()
-        jax.device_get(trivial(ones8))
-        floors.append(time.perf_counter() - t0)
-    link_floor_ms = float(np.median(floors)) * 1e3
 
     def feed_imu(t_from, t_to):
         n = max(int(round((t_to - t_from) * args.imu_hz)), 1)
@@ -344,7 +336,6 @@ def main():
         "raw_points_per_scan": int(raw_cap),
         "ms_per_frame_wall": round(float(np.mean(frame_times)) * 1e3, 2),
         "ms_per_frame_median": round(float(np.median(frame_times)) * 1e3, 2),
-        "link_floor_ms": round(link_floor_ms, 2),
         "stage_ms": {k: round(v / max(len(frame_times), 1) * 1e3, 2)
                      for k, v in sorted(stage_sums.items())},
         "device_syncs_per_frame": odo.sync_count_last_frame,

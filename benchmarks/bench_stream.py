@@ -13,7 +13,8 @@ come back):
   * QoS drops + truncations (must be 0 at the sustainable rate),
   * trajectory ATE vs ground truth (the transport must not change results).
 
-Writes benchmarks/STREAM_r{N}.json.
+Needs a GPU; prints the card's name and power limit.  ``--json PATH``
+also writes the result there.
 """
 
 import argparse
@@ -23,6 +24,7 @@ import sys
 import threading
 import time
 
+import jax
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -51,8 +53,8 @@ from sycl_points_tpu.points.point_cloud import pad_capacity_for
 
 def main():
     from sycl_points_tpu.utils.compile_cache import enable_persistent_cache
+    from sycl_points_tpu.utils.device import card_line, require_gpu
 
-    enable_persistent_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=60)
     ap.add_argument("--speed", type=float, default=0.35)
@@ -66,6 +68,10 @@ def main():
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--json", default=None)
     args = ap.parse_args()
+    require_gpu()
+    enable_persistent_cache()
+    print(f"device: {jax.devices()[0].device_kind}; card: {card_line()}",
+          file=sys.stderr, flush=True)
 
     world = World()
     poses = figure8_trajectory(args.frames, speed=args.speed)
@@ -211,8 +217,7 @@ def main():
         "scan_queue_dropped": tele["scan_queue_dropped"],
         "frames_truncated_points": tele["frames_truncated_points"],
         "ate_translation_m": round(ate, 3),
-        # server-side breakdown (queue wait vs process) — the r4 wedge's
-        # missing measurement
+        # server-side breakdown: where each frame's wall time went
         "server_queue_wait_ms": tele.get("queue_wait_ms"),
         "server_process_ms": tele.get("process_ms"),
         "server_pose_e2e_ms": tele.get("pose_e2e_server_ms"),

@@ -2,7 +2,7 @@
 //
 // The reference implements its entire I/O layer in C++
 // (io/point_cloud_reader.hpp, io/point_cloud_writer.hpp in
-// fateshelled/sycl_points).  The TPU compute path is XLA, but the host
+// fateshelled/sycl_points).  The compute path is XLA, but the host
 // runtime around it stays native: this library provides
 //   * a fast PLY reader (ASCII + binary_little_endian),
 //   * a KITTI Velodyne .bin reader,

@@ -1,14 +1,10 @@
-"""Brute-force vs CoarseKNN nn1 beyond the measured envelope (M > 524k).
+"""Brute-force vs CoarseKNN nn1 beyond M = 524k targets.
 
-GRID_CROSSOVER.json showed the brute-force MXU scan beats the 27-cell grid
-at every size up to 524k. This probe extends the measured envelope with the
-coarse-to-fine candidate tier (ops/coarse_knn.py): one [Q, C] cell-summary
-ranking + a bounded candidate refine, with the per-query exactness
-certificate reported alongside the timing.
-
-Writes scripts/COARSE_CROSSOVER.json.  Protocol: marginal in-program
-repetition is impractical for the host-chunked search loops, so both paths
-are timed identically — warm jitted calls, block_until_ready, median of 5.
+Compares brute force with the coarse-to-fine candidate tier
+(ops/coarse_knn.py): one [Q, C] cell-summary ranking + a bounded candidate
+refine, with the per-query exactness certificate reported alongside the
+timing.  Both paths are timed identically on the GPU — warm jitted calls,
+block_until_ready, median of 5.  Writes chiprun_out/COARSE_CROSSOVER.json.
 """
 
 import json
@@ -53,6 +49,9 @@ def main():
                     help="comma-separated target counts M")
     ap.add_argument("--queries", type=int, default=Q)
     args = ap.parse_args()
+    from sycl_points_tpu.utils.device import require_gpu
+
+    require_gpu()
     q_n = args.queries
 
     print(f"device: {jax.devices()[0]}", file=sys.stderr, flush=True)
@@ -94,8 +93,9 @@ def main():
     out = {"Q": q_n, "coarse_cell": COARSE_CELL, "top_cells": 8,
            "max_per_cell": PER_CELL, "cells_capacity": CELLS_CAP,
            "rows": rows}
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "COARSE_CROSSOVER.json")
+    out_dir = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "COARSE_CROSSOVER.json")
     with open(path, "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out))

@@ -1,9 +1,8 @@
 """Measure the brute-force vs GridKNN crossover for correspondence search.
 
 Runs nn1 (k=1) search over M in {16k..512k} targets with Q=8192 queries on
-the current backend using the marginal in-program protocol (see
-bench_knn_variants.py), plus GridKNN.build cost.  Records
-scripts/GRID_CROSSOVER.json; the winner sets
+the GPU (median wall time around ``block_until_ready``), plus GridKNN.build
+cost.  Writes chiprun_out/GRID_CROSSOVER.json; the winner sets
 ``ops.knn.GRID_KNN_TARGET_THRESHOLD``.
 
 Usage: python scripts/measure_grid_crossover.py
@@ -39,41 +38,24 @@ def make_cloud(M, seed=0):
     return PointCloud.from_numpy(pts, capacity=M)
 
 
-def time_searcher(knn, queries, reps=(1, 5), iters=3):
-    """Marginal in-program timing of knn.search(q, 1).  The structure is
-    passed as a jit ARGUMENT — closure capture would make its arrays program
-    constvars (~100-200 s compiles + ~30 ms/execute on this runtime; see
-    docs/design.md 'Known platform pitfall')."""
-
-    def make(n):
-        @jax.jit
-        def f(knn, q, salt):
-            def body(_, carry):
-                qc, acc = carry
-                res = knn.search(qc + 1e-12 * acc, 1)
-                d = jnp.where(jnp.isfinite(res.distances[0, 0]), res.distances[0, 0], 0.0)
-                return qc, acc + d + res.indices[0, 0].astype(jnp.float32)
-
-            _, acc = jax.lax.fori_loop(0, n, body, (q + salt, jnp.float32(0.0)))
-            return acc
-
-        return f
-
-    times = {}
-    for n in reps:
-        f = make(n)
-        f(knn, queries, jnp.float32(0.0)).block_until_ready()
-        best = np.inf
-        for it in range(iters):
-            salt = jnp.float32(1e-6 * (it + 1))
-            t0 = time.perf_counter()
-            float(f(knn, queries, salt))
-            best = min(best, time.perf_counter() - t0)
-        times[n] = best
-    return (times[reps[1]] - times[reps[0]]) / (reps[1] - reps[0]) * 1e3
+def time_searcher(knn, queries, iters=10):
+    """Median wall ms of a jitted ``knn.search(q, 1)`` until ready.  The
+    structure is passed as a jit ARGUMENT: closure capture would embed its
+    arrays in the program as constants."""
+    f = jax.jit(lambda knn, q: knn.search(q, 1))
+    jax.block_until_ready(f(knn, queries))
+    ts = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        jax.block_until_ready(f(knn, queries))
+        ts.append(time.perf_counter() - t0)
+    return float(np.median(ts)) * 1e3
 
 
 def main():
+    from sycl_points_tpu.utils.device import card_line, require_gpu
+
+    require_gpu()
     rows = []
     rng = np.random.default_rng(99)
     for M in (16384, 32768, 65536, 131072, 262144, 524288):
@@ -110,12 +92,14 @@ def main():
         print(row, flush=True)
 
     out = dict(
-        backend=jax.default_backend(),
-        device=str(jax.devices()[0]),
+        device=jax.devices()[0].device_kind,
+        card=card_line(),
         cell_size=CELL,
         rows=rows,
     )
-    path = os.path.join(os.path.dirname(__file__), "GRID_CROSSOVER.json")
+    out_dir = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "GRID_CROSSOVER.json")
     with open(path, "w") as f:
         json.dump(out, f, indent=1)
     print("wrote", path)

@@ -1,13 +1,12 @@
-"""Warm vs cold GridKNN build cost on the chip.
+"""Warm vs cold GridKNN build cost on the GPU.
 
-GRID_CROSSOVER.json recorded `grid_build_ms_host` of 3.2-33 s — but that
-number is dominated by the one-time XLA compiles of the jitted build at
-each (capacity, per-cell-budget) signature that build_auto's zero-loss
+A cold build is dominated by the one-time XLA compiles of the jitted build
+at each (capacity, per-cell-budget) signature that build_auto's zero-loss
 retry ladder walks.  This probe separates the two: the first build pays the
 compiles; repeat builds of same-shaped clouds (the steady state of any real
 pipeline, and of repeat runs under JAX_COMPILATION_CACHE_DIR) reuse them.
 
-Writes scripts/GRID_WARM_BUILD.json.
+Writes chiprun_out/GRID_WARM_BUILD.json.
 """
 
 import json
@@ -28,7 +27,11 @@ CELL = 2.0  # max_correspondence_distance-sized cells (exact-in-gate)
 
 
 def main():
-    print(f"device: {jax.devices()[0]}", file=sys.stderr, flush=True)
+    from sycl_points_tpu.utils.device import card_line, require_gpu
+
+    require_gpu()
+    print(f"device: {jax.devices()[0].device_kind}; card: {card_line()}",
+          file=sys.stderr, flush=True)
     rng = np.random.default_rng(0)
     rows = []
     for m in (1 << 17, 1 << 19):
@@ -59,8 +62,9 @@ def main():
         print(rows[-1], file=sys.stderr, flush=True)
 
     out = {"cell_size": CELL, "rows": rows}
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "GRID_WARM_BUILD.json")
+    out_dir = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "GRID_WARM_BUILD.json")
     with open(path, "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out))

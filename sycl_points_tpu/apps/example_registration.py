@@ -46,6 +46,9 @@ def main(argv=None):
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--gt", default=None, help="ground-truth 4x4 matrix txt")
     args = ap.parse_args(argv)
+    from sycl_points_tpu.utils.compile_cache import enable_persistent_cache
+
+    enable_persistent_cache()
 
     src_np = io.read_file(args.source)
     tgt_np = io.read_file(args.target)

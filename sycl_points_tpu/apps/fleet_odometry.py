@@ -1,7 +1,7 @@
 """Multi-sequence fleet odometry runner: N LiDAR sequences through ONE
 :class:`FleetOdometry` instance — the serving deployment of the vmapped
 fleet layer (one program pair + one async readback per frame for ALL
-sequences; see ``parallel/fleet.py`` and design rule 16).
+sequences; see ``parallel/fleet.py`` and design rule 13).
 
 Each positional argument is a sequence directory of KITTI Velodyne ``.bin``
 or ``.ply`` scans.  Sequences of different lengths are padded with empty
@@ -128,6 +128,9 @@ def main(argv=None):
     ap.add_argument("--config", default=None)
     ap.add_argument("--rate", type=float, default=10.0)
     args = ap.parse_args(argv)
+    from sycl_points_tpu.utils.compile_cache import enable_persistent_cache
+
+    enable_persistent_cache()
 
     files_per_stream = []
     for d in args.seq_dirs:

@@ -58,7 +58,9 @@ def write_tum(path: str, stamps, poses):
             f.write(f"{t:.6f} {tx:.6f} {ty:.6f} {tz:.6f} {q[0]:.6f} {q[1]:.6f} {q[2]:.6f} {q[3]:.6f}\n")
 
 
-def main(argv=None):
+def main(argv=None, frame_times: list | None = None):
+    """Run the CLI; ``frame_times``, if given, receives the wall seconds of
+    each frame's ``process`` call."""
     ap = argparse.ArgumentParser()
     ap.add_argument("velodyne_dir")
     ap.add_argument("--max-frames", type=int, default=0)
@@ -73,6 +75,9 @@ def main(argv=None):
                          "async deferred stats; poses resolve a few frames "
                          "behind and are flushed at the end)")
     args = ap.parse_args(argv)
+    from sycl_points_tpu.utils.compile_cache import enable_persistent_cache
+
+    enable_persistent_cache()
 
     files = sorted(glob.glob(os.path.join(args.velodyne_dir, "*.bin")))
     if args.max_frames:
@@ -125,7 +130,10 @@ def main(argv=None):
             capacity=raw_cap,
         )
         ts = i / args.rate
+        t0 = time.perf_counter()
         result = lo.process(cloud, ts)
+        if frame_times is not None:
+            frame_times.append(time.perf_counter() - t0)
         if result not in (ResultType.success, ResultType.first_frame):
             print(f"frame {i}: {result.value} ({lo.error_message})", file=sys.stderr)
         if not args.pipelined:

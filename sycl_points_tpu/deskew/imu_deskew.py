@@ -7,7 +7,7 @@ the buffered IMU window is integrated into a relative-pose trajectory
 extrinsic similarity transform, and every point is corrected by the
 slerp/lerp-interpolated pose at its timestamp (imu_deskew.hpp:330-411).
 
-TPU-native split:
+Host/device split:
   * host: buffer filtering, coverage checks, scan-start boundary sample
     (imu_deskew.hpp:160-215);
   * device (jittable): one ``lax.scan`` trajectory integration
@@ -147,8 +147,7 @@ def deskew_point_cloud_imu(
 
     # Fixed-bucket padding so the device pass compiles once per
     # (params, bucket, cloud shape) — the eager per-frame version paid
-    # compile/dispatch overhead EVERY frame on this runtime (measured
-    # 1.6 s/frame in the distorted LIO replay).  Padded steps carry dt=0 /
+    # compile/dispatch overhead EVERY frame.  Padded steps carry dt=0 /
     # valid=False, so the integrator holds state and the padded trajectory
     # tail repeats the final pose; t_rel pads with its last value, which
     # searchsorted resolves to the same pose (exact interpolation).

@@ -278,11 +278,6 @@ def align(
     src_covs_reg, tgt = reg_core._precompute_targets(factor_params, source, target)
     src_pts, src_mask = source.points, source.mask
     update_bias = jnp.asarray(update_bias)
-    # Target operands prepared once, outside the per-level while loops (the
-    # correspondence search reruns every iteration on the same target).
-    if hasattr(target_knn, "prepped"):
-        target_knn = target_knn.prepped()
-
     def imu_cost(state: State):
         r = imu_factor.compute_manifold_residual(predicted_state, state)
         return jnp.where(imu_valid, 0.5 * jnp.dot(r, H_imu @ r), 0.0)

@@ -1,18 +1,17 @@
 """Shared open-addressing hash-table primitives for the mapping backends.
 
-TPU-native replacement for the CAS insertion loop the reference uses in both
+Replacement for the CAS insertion loop the reference uses in both
 ``mapping/voxel_hash_map.hpp:574-612`` and
 ``mapping/occupancy_grid_map.hpp:785-820``: a *scatter-claim* probe loop —
 each unresolved key writes a ticket into a claim array at its probe slot and
 re-reads to find the winner.  Requires keys to be unique within a batch
 (guaranteed by the sort/segment-reduce pre-aggregation).
 
-Probe-round layout (measured on v5e at 131k keys / 524k slots): a [M,3] row
-scatter costs 5.0 ms vs 0.41 ms per planar [M] scatter, and bool gathers
-cost 2.5x int gathers — so inside the probe loops the 3x21-bit coords are
-packed into TWO uint32 planes and ``used`` is carried as int32; the [C,3]
-public layout is restored on exit.  This cuts a probe round from ~10 ms to
-~4 ms at that width.
+Probe-round layout: inside the probe loops the 3x21-bit coords are packed
+into TWO uint32 planes (planar [M] scatters instead of [M,3] row scatters)
+and ``used`` is carried as int32; the [C,3] public layout is restored on
+exit.  The slot a key lands in depends on which ticket wins a scatter,
+which is not fixed on a GPU: compare maps as sets of keys.
 """
 
 from __future__ import annotations

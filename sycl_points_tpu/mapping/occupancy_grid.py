@@ -363,10 +363,9 @@ def _merge_miss_keys(keys_flat, capacity, B, base_coord):
     - ``_merge_miss_keys_rle``  (DEFAULT): sort + searchsorted run-length
       extraction — gathers only, no scatter.
     - ``_merge_miss_keys_sort``: sort + segment_sum/segment_min — the
-      segment reductions lower to large scatters (36.2 ms measured).
+      segment reductions lower to large scatters.
     - ``_merge_miss_keys_dense``: scatter-grid over the B^3 carve window —
-      scatter-bound on this runtime (68.6 ms measured); kept as the
-      measured-negative record.
+      scatter-bound; kept as the alternative.
 
     Returns (keys [capacity, 3] in offset coords, cnt [capacity], n_lost).
     """
@@ -423,10 +422,8 @@ def _merge_miss_keys_rle(keys_flat, capacity, B, base_coord):
 
 
 def _merge_miss_keys_dense(keys_flat, capacity, B, base_coord):
-    """Scatter-grid unique merge over the [B^3] carve window — kept as a
-    measured NEGATIVE result: 68.6 ms at the config-7 shape vs 36.2 ms for
-    the sort-based merge (large scatters are the most expensive primitive
-    on this runtime; see docs/design.md platform rules).
+    """Scatter-grid unique merge over the [B^3] carve window — the
+    alternative to the sort-based merge; not measured on the GPU.
     """
     ncells = B * B * B
     dense = jnp.zeros((ncells,), jnp.float32).at[keys_flat].add(1.0, mode="drop")

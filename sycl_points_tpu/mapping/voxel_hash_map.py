@@ -3,8 +3,8 @@
 Replaces ``algorithms/mapping/voxel_hash_map.hpp`` of fateshelled/sycl_points.
 The reference maintains a GPU open-addressing table updated with
 work-group-local bitonic sort + CAS/atomic global merges
-(voxel_hash_map.hpp:574-792).  TPUs have no useful global atomics, so the
-TPU-native insert is:
+(voxel_hash_map.hpp:574-792).  Here the insert is order-independent, with
+no CAS loop:
 
   1. per-frame pre-aggregation by device sort + segment-reduce (the same
      math the reference does in work-group local memory), producing at most

@@ -1,8 +1,7 @@
 """Coarse-to-fine candidate KNN for very large target clouds.
 
-The brute-force MXU scan (ops/knn.py) is linear in the target count M —
-measured as the right call up to M = 524k (scripts/GRID_CROSSOVER.json),
-but a real capability boundary beyond that.  This is the TPU-native
+The brute-force scan (ops/knn.py) is linear in the target count M — a
+real capability boundary for very large maps.  This is the
 sub-linear tier replacing what the reference does with a KD-tree
 (``algorithms/knn/kdtree.hpp:424-562``): no per-query stacks or
 data-dependent traversal — a two-level candidate search built from the
@@ -125,7 +124,7 @@ class CoarseKNN:
         refer to positions in the SORTED target layout (self.points/mask —
         the layout served to registration).
 
-        The [q, C] cell ranking runs as one MXU matmul; ``margin`` is
+        The [q, C] cell ranking runs as one matmul; ``margin`` is
         subtracted from every lower bound to absorb the matmul's f32
         cancellation noise, making the certificate strictly conservative
         (a borderline query reports uncertified, never falsely exact)."""
@@ -135,7 +134,7 @@ class CoarseKNN:
         N = self.points.shape[0]
 
         def one_chunk(qc):
-            # [q, C] lower bounds from the cell summaries (MXU matmul; no
+            # [q, C] lower bounds from the cell summaries (one matmul; no
             # [q, C, 3] broadcast temporary)
             q2 = jnp.sum(qc * qc, axis=1, keepdims=True)
             c2 = jnp.sum(self.centroids * self.centroids, axis=1)[None, :]

@@ -1,7 +1,7 @@
 """Per-point covariance and normal estimation from KNN neighborhoods.
 
 Replaces ``algorithms/feature/covariance.hpp`` of fateshelled/sycl_points.
-All estimators are batched gathers + einsum moment accumulation (MXU/VPU)
+All estimators are batched gathers + einsum moment accumulation
 over the whole cloud instead of per-work-item loops:
 
   * plain estimator (covariance.hpp:16-47): neighborhood second moment with
@@ -47,9 +47,9 @@ def _weighted_moments(
     total_w = jnp.sum(w, axis=1)
     count = jnp.sum(valid, axis=1)
     total_w_safe = jnp.maximum(total_w, 1e-30)
-    # Broadcast-multiply-sum moment accumulation: exact f32 on the VPU (a
-    # dot_general over the tiny k axis would go through multi-pass bf16
-    # MXU emulation at precision='highest').  CENTERED two-pass form: the
+    # Broadcast-multiply-sum moment accumulation: exact f32 in one fused
+    # elementwise pass (a dot_general over the tiny k axis would depend on
+    # the matmul precision setting).  CENTERED two-pass form: the
     # E[xx^T] - mu mu^T identity cancels catastrophically in f32 at LiDAR
     # coordinate magnitudes (~30 m -> products ~900 vs covariances ~1e-4),
     # yielding indefinite matrices with eigenvalues down to -3e-4; centering

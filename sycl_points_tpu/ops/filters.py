@@ -2,7 +2,7 @@
 
 Replaces the flag-and-compact filter operators of fateshelled/sycl_points
 (``algorithms/filter/preprocess_operator/*`` and
-``algorithms/filter/outlier_removal_filter.hpp``).  TPU design: filters
+``algorithms/filter/outlier_removal_filter.hpp``).  Design: filters
 *mask* points (no data movement); compaction happens only when a smaller
 static capacity is wanted (:func:`sycl_points_tpu.points.point_cloud.compact_device`).
 """

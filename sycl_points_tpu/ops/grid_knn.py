@@ -1,9 +1,9 @@
 """Grid-bucket KNN: sorted voxel buckets + 27-cell neighborhood search.
 
-TPU-native replacement for the reference's pointer-based KD-tree and octree
+Replacement for the reference's pointer-based KD-tree and octree
 (``algorithms/knn/kdtree.hpp``, ``algorithms/knn/octree.hpp`` in
 fateshelled/sycl_points).  Trees need per-query stacks and data-dependent
-traversal — hostile to the TPU's SIMD/static-shape model.  Instead:
+traversal — a poor fit for static-shape, data-parallel code.  Instead:
 
   * build: bucket points into voxel cells (cell coords -> hash table via the
     mapping scatter-claim machinery), lexsort points by cell so each cell is
@@ -19,12 +19,10 @@ the 27-cell neighborhood, so results are EXACT for neighbors closer than
 correspondences).  Farther neighbors may be missed (distance inf) — the same
 bounded-search trade the reference octree makes with its traversal caps.
 
-MEASURED VERDICT (TPU v5e, scripts/GRID_CROSSOVER.json): this structure is
-10-40x SLOWER than the brute-force MXU/VPU scan at every size from 16k to
-524k targets — TPU gathers lose to streaming compute — so the pipeline's
-auto-selection (ops.knn.build_target_knn) never picks it; it remains an
-explicit opt-in for memory-constrained cases (its candidate set is O(Q*27P)
-instead of O(Q*M)).
+The pipeline's auto-selection (ops.knn.build_target_knn) never picks it:
+brute force is the default until the crossover is measured on the GPU
+(``scripts/measure_grid_crossover.py``).  It remains an explicit opt-in for
+memory-constrained cases (its candidate set is O(Q*27P) instead of O(Q*M)).
 """
 
 from __future__ import annotations

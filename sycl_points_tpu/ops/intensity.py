@@ -2,7 +2,7 @@
 local-mean normalization, z-score.
 
 Replaces the ``algorithms/filter/intensity_*.hpp`` family of
-fateshelled/sycl_points; each op is a batched gather + fused VPU pass over
+fateshelled/sycl_points; each op is a batched gather + fused elementwise pass over
 the KNN neighborhoods:
 
   * correction (intensity_correction.hpp:18-38):

@@ -10,12 +10,8 @@ runs vmapped over the stacked pair.  Semantically identical to two
 :func:`~sycl_points_tpu.ops.voxel.voxel_downsample` calls followed by
 per-cloud feature estimation.
 
-MEASURED NEGATIVE RESULT (v5-lite, 2x 98k-point scans): this fused path is
-~0.4 ms SLOWER per pair than two sequential preprocesses (5.2 vs 4.7 ms
-full-step marginal) — the doubled sort and the vmapped (batched) top-k lower
-worse than the savings from halving pass count.  Kept as a tested
-alternative for small-cloud regimes; the default pipelines use the
-sequential path.
+Kept as a tested alternative; the default pipelines use the sequential
+path.  Which is faster on the GPU is not measured.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 Parity module for the reference's 3-phase work-group scan
 (``algorithms/common/prefix_sum.hpp`` in fateshelled/sycl_points) and the
 host-side ``FilterByFlags::calculate_indices`` old->new index map
-(``common/filter_by_flags.hpp:11-99``).  On TPU a device-wide scan is a
+(``common/filter_by_flags.hpp:11-99``).  On the device a scan is a
 single fused ``jnp.cumsum``; these helpers package the common compaction
 idioms built on it.
 """

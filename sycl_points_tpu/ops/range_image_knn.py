@@ -2,8 +2,7 @@
 
 The covariance/normal neighborhood pass (``feature/covariance.hpp:260-503``)
 needs k~10-20 neighbors for every point of a raw scan.  Dense matmul KNN is
-O(N*M) and HBM-bound (~0.7 Mq/s at M=131k measured); tree/grid gathers lose
-to brute force on this runtime (scripts/GRID_CROSSOVER.json).
+O(N*M) and memory-bound; tree/grid structures need gathers per candidate.
 
 A spinning LiDAR's geometry IS a 2-D grid: every return lives in a unique
 (azimuth column, elevation ring) cell.  Scatter the cloud into that dense

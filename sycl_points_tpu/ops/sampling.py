@@ -116,7 +116,7 @@ def mixed_sampling(
 
 def farthest_point_sampling(cloud: PointCloud, num: int, key: jax.Array) -> PointCloud:
     """Iterative FPS (farthest_point_sampling_operator.hpp:27-91): device
-    min-distance update + argmax per round, O(num * N) on the VPU."""
+    min-distance update + argmax per round, O(num * N)."""
     if num >= cloud.capacity:
         return cloud
     pts = cloud.points

@@ -16,8 +16,9 @@ from sycl_points_tpu.utils.smallmat import matvec3, rotate_mat3
 def transform_points(points: jax.Array, T: jax.Array) -> jax.Array:
     """Apply ``T [4,4]`` to ``points [..., 3]`` (kernel::transform_point).
 
-    Elementwise broadcast-sum (VPU): exact f32 and one fused kernel, where a
-    ``[N,3] @ [3,3]`` dot would round products to bf16 at default precision.
+    Elementwise broadcast-sum: exact f32 and one fused kernel, where a
+    ``[N,3] @ [3,3]`` dot would follow the default matmul precision (TF32
+    on the GPU).
     """
     return matvec3(T[..., :3, :3], points) + T[..., :3, 3]
 

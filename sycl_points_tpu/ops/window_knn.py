@@ -2,12 +2,10 @@
 
 The covariance/normal neighborhood pass needs k≈10-20 neighbors for EVERY
 point of a raw scan (``feature/covariance.hpp:260-503`` runs it through a
-KD-tree in the reference).  Dense approaches are VPU/bandwidth-bound at
-O(N·M) — measured ~0.7 Mq/s at M=131k (BENCH_SUITE knn_k10) — and
-gather-based spatial structures lose to brute force on this runtime
-(scripts/GRID_CROSSOVER.json: TPU gathers dominate).
+KD-tree in the reference).  Dense approaches are bandwidth-bound at
+O(N·M), and gather-based spatial structures pay a gather per candidate.
 
-TPU-native alternative: order points along a space-filling curve, then
+Alternative: order points along a space-filling curve, then
 almost all true neighbors sit within a small WINDOW of the sorted order —
 and window distances need no gathers at all, only shifted slices:
 

@@ -5,7 +5,7 @@ programs — preprocess, registration (program A) and submap update (program
 B) — are ``vmap``-ed over a leading *stream* axis and dispatched ONCE per
 fleet frame, so per-program dispatch overhead, the host orchestration cost,
 and the single async stats readback amortize over all ``n_streams`` streams.
-Small per-stream matmuls also batch into larger, MXU-friendlier ones.
+Small per-stream matmuls also batch into larger ones.
 
 On a multi-chip ``jax.sharding.Mesh`` the stream axis is sharded (GSPMD):
 each chip runs ``n_streams / n_devices`` streams with zero cross-chip
@@ -31,8 +31,6 @@ Semantics and scope (v1, documented deltas vs the single-stream pipelines):
   :class:`FleetLIO` batches the full 15-DOF inertial pipeline — per-stream
   IMU windows, preintegration, bias states — with the same program-pair
   structure.
-- The Pallas nn1 kernel is not used under vmap; the XLA correspondence path
-  batches across streams instead (bigger matmuls, same result).
 
 Reference frame loops being batched: pipeline/lidar_odometry.hpp:115-298,
 pipeline/lidar_inertial_odometry.hpp:131-472.
@@ -265,7 +263,7 @@ class FleetOdometry:
             sm = self._t.submap
             cfg = self._cfg_at(capacity)
             raw = make_submap_step(
-                self.params, sm, use_pallas=False,
+                self.params, sm,
                 robust_scale=self._robust_scale,
                 ie=sm.make_insert_extract(cfg, self._extract_cap), cfg=cfg,
             )
@@ -432,7 +430,6 @@ class FleetOdometry:
         host_vec = jnp.asarray(np.stack([dts, ts], axis=1))  # [B, 2]
         knn = BruteForceKNN(
             points=self.submap_cloud.points, mask=self.submap_cloud.mask,
-            use_pallas=False,
         )
         result, deskewed, T_eff, is_kf, new_carry, s1 = self._reg_jit(
             pre, self.submap_cloud, knn, self._carry, host_vec
@@ -744,7 +741,6 @@ class FleetLIO(FleetOdometry):
         )
         knn = BruteForceKNN(
             points=self.submap_cloud.points, mask=self.submap_cloud.mask,
-            use_pallas=False,
         )
         x_new, P_new, reg_input, T_eff, is_kf, new_carry, s1 = self._lio_jit(
             pre, self.submap_cloud, knn, self.x, self.P, imu_pack,

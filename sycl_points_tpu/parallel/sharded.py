@@ -1,7 +1,7 @@
 """Multi-chip (ICI) scaling via jax.sharding: shard the point axis.
 
 The reference has no distributed layer (SURVEY.md 2.12: one sycl::queue).
-The TPU-native extension scales the data-parallel axis the reference tiles
+This extension scales the data-parallel axis the reference tiles
 over work-items — the *point* axis — across a device mesh:
 
   * source points, masks and per-point attributes are sharded over the
@@ -130,8 +130,7 @@ def align_pairs_batched(mesh: Mesh, sources: PointCloud, targets: PointCloud,
     @jax.jit
     def run(s, t, T):
         def one(s1, t1, T1):
-            # XLA-path KNN inside vmap (the Pallas kernel is per-pair).
-            knn = BruteForceKNN(points=t1.points, mask=t1.mask, use_pallas=False)
+            knn = BruteForceKNN(points=t1.points, mask=t1.mask)
             return align(s1, t1, knn, params, initial_guess=T1)
 
         return jax.vmap(one)(s, t, T)

@@ -21,7 +21,7 @@ from sycl_points_tpu.points.point_cloud import PointCloud
 from sycl_points_tpu.registration.registration import compute_icp_robust_weights
 
 
-def make_submap_step(params, submap, use_pallas: bool,
+def make_submap_step(params, submap,
                      robust_scale: Optional[float] = None,
                      *, ie=None, cfg=None):
     """Build the RAW (unjitted) submap-update traceable for the CURRENT map
@@ -70,10 +70,7 @@ def make_submap_step(params, submap, use_pallas: bool,
 
         def do_update(_):
             n_desk = deskewed.count()
-            knn_prev = BruteForceKNN(
-                points=submap_prev.points, mask=submap_prev.mask,
-                use_pallas=use_pallas,
-            )
+            knn_prev = BruteForceKNN(points=submap_prev.points, mask=submap_prev.mask)
 
             def with_weights(k):
                 w = compute_icp_robust_weights(
@@ -119,12 +116,12 @@ def make_submap_step(params, submap, use_pallas: bool,
     return _submap_step
 
 
-def build_submap_step(params, submap, use_pallas: bool,
+def build_submap_step(params, submap,
                       robust_scale: Optional[float] = None,
                       *, ie=None, cfg=None):
     """Jitted :func:`make_submap_step` (the per-frame program the odometry
     pipelines dispatch)."""
-    return jax.jit(make_submap_step(params, submap, use_pallas, robust_scale,
+    return jax.jit(make_submap_step(params, submap, robust_scale,
                                     ie=ie, cfg=cfg))
 
 
@@ -268,7 +265,7 @@ def _compile_growth_step(pipeline, robust_scale, arg_structs, cfg):
     fn = prebuilt.get(ie_key)
     if fn is None:
         fn = build_submap_step(
-            pipeline.params, submap, pipeline._use_pallas, robust_scale,
+            pipeline.params, submap, robust_scale,
             ie=submap.make_insert_extract(next_cfg, next_ext), cfg=next_cfg,
         )
         prebuilt[ie_key] = fn
@@ -293,10 +290,7 @@ def _compile_growth_step(pipeline, robust_scale, arg_structs, cfg):
         and target.points.shape != reg_structs[1].points.shape
         and next_ext <= GRID_KNN_TARGET_THRESHOLD
     ):
-        knn = BruteForceKNN(
-            points=target.points, mask=target.mask,
-            use_pallas=pipeline._use_pallas,
-        )
+        knn = BruteForceKNN(points=target.points, mask=target.mask)
         reg_jit.lower(reg_structs[0], target, knn, *reg_structs[3:]).compile()
 
     # Pipelined pipelines additionally pay the fused reconcile-chain program

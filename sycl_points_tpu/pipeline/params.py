@@ -183,7 +183,7 @@ class SubmapParams:
     # voxel-hash staleness pruning (voxel_hash_map.hpp:53-66, 134-140)
     max_staleness: int = 100
     remove_old_data_cycle: int = 10
-    # TPU-specific static capacities:
+    # Static capacities (shapes are fixed per compiled program):
     map_capacity: int = 1 << 17
     extract_capacity: int = 1 << 14
     # Tier the extraction budget with map growth (and on observed overflow):
@@ -209,7 +209,7 @@ class MEstimationParams:
 class CovarianceEstimationParams:
     neighbor_num: int = 10
     m_estimation: MEstimationParams = MEstimationParams()
-    # Raw-features path (beyond ref, TPU-first): estimate covariances on the
+    # Raw-features path (beyond ref): estimate covariances on the
     # RAW sensor-frame scan with the O(N) range-image neighborhood search
     # (ops.range_image_knn, measured 0.998 recall) and carry them through
     # the voxel downsample (mean member covariance) — replaces the dense
@@ -293,7 +293,7 @@ class CommonParameters:
     registration: RegistrationBlockParams = RegistrationBlockParams()
     registration_sampling: RandomSamplingParams = RandomSamplingParams()
     pose: PoseParams = PoseParams()
-    # TPU-specific: static preprocessed-cloud capacity tier
+    # Static preprocessed-cloud capacity tier
     scan_capacity: int = 1 << 13
 
 

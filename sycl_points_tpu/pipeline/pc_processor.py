@@ -7,7 +7,7 @@ covariance estimation (robust or plain) -> refine filter (angle incidence,
 intensity correction / Gaussian smoothing / local-mean normalization with
 KNN-result reuse).
 
-TPU design: every stage is jitted and shape-static; the prefilter chain
+Design: every stage is jitted and shape-static; the prefilter chain
 compacts to a fixed capacity tier once, and the random sampler fixes the
 final capacity.
 """
@@ -108,8 +108,7 @@ class PCProcessor:
 
     # -- covariance context --------------------------------------------------
     def prepare_context(self, cloud: PointCloud) -> ProcessingContext:
-        # Covariance neighborhoods tolerate ~2% approximate neighbors;
-        # approx_max_k is 7.7x faster on TPU and exact on CPU.  The
+        # Covariance neighborhoods use approx_knn (exact on CPU and GPU).  The
         # raw-features path carries covariances from the raw scan; its KNN
         # context is only needed for the intensity refine ops.
         if cloud.covs is not None and not self._refine_needs_knn():

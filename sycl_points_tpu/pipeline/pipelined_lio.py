@@ -290,7 +290,6 @@ class PipelinedLidarInertialOdometry(LidarInertialOdometry):
         self.submap.submap_cloud = new_submap
         self.submap.submap_knn = BruteForceKNN(
             points=new_submap.points, mask=new_submap.mask,
-            use_pallas=self._use_pallas,
         )
         stats = self._stats_cat_jit(s1, s2)
         stats.copy_to_host_async()
@@ -368,7 +367,7 @@ class PipelinedLidarInertialOdometry(LidarInertialOdometry):
         dropped_delta = int(dropped) - self._dropped_seen
         if dropped_delta > 0:
             # fused chain reconcile: one program per grow attempt instead of
-            # ~4 link round trips per stashed frame (see Submap.reconcile_chain)
+            # ~4 device->host syncs per stashed frame (see Submap.reconcile_chain)
             self.submap.map_state = pend.prev_map_state
             clouds = [pend.sampled] + [l.sampled for l in self._pending]
             poses = [jnp.asarray(T_np)] + [l.T_eff for l in self._pending]

@@ -99,7 +99,7 @@ class Submap:
         # Cached jitted per-keyframe kernels (eager composites are slow on
         # some runtimes and would re-dispatch dozens of ops per keyframe).
         # Growth programs are jit-cached per capacity (an eager grow() call
-        # recompiles its embedded loops EVERY call on this runtime) and both
+        # recompiles its embedded loops EVERY call) and both
         # caches accept entries published by the background growth
         # precompile (fused_submap.start_growth_precompile).
         sp_ = params.submap
@@ -575,7 +575,7 @@ class Submap:
 
         def _chain(st, clouds_t, poses_t, valid):
             # stacking happens INSIDE the program: eager jnp.stack/zeros on
-            # this runtime compile per call (design rule 10), which cost the
+            # compile per call (design rule 9), which cost the
             # first growth event seconds
             clouds = jax.tree.map(lambda *xs: jnp.stack(xs), *clouds_t)
             poses = jnp.stack(poses_t)
@@ -638,7 +638,7 @@ class Submap:
             raise ValueError(f"reconcile window {W} > chain capacity {window}")
         pad = window - W
         # Padding is HOST numpy (device_put'd by the jit call): no eager
-        # device op ever runs on this path (design rule 10).
+        # device op ever runs on this path (design rule 9).
         empty = jax.tree.map(
             lambda a: np.zeros(a.shape, a.dtype), clouds[0]
         )

@@ -1,6 +1,6 @@
 """PointCloud: a pytree struct-of-arrays container with static (padded) shapes.
 
-TPU-native re-design of the reference containers ``PointCloudCPU`` /
+Re-design of the reference containers ``PointCloudCPU`` /
 ``PointCloudShared`` (``points/point_cloud.hpp:12-476`` in
 fateshelled/sycl_points).  Instead of resizable USM vectors, a cloud is a
 frozen dataclass of fixed-capacity HBM arrays plus a validity ``mask`` —
@@ -147,7 +147,7 @@ class PointCloud:
 def compact_device(cloud: PointCloud, out_capacity: Optional[int] = None) -> PointCloud:
     """Stream-compact valid points to the front (gather; jittable).
 
-    TPU replacement for the host-side ``FilterByFlags`` compaction
+    Device replacement for the host-side ``FilterByFlags`` compaction
     (``common/filter_by_flags.hpp:11-99``): a stable argsort on the inverted
     mask moves valid points first while preserving order; the result keeps a
     static capacity with a fresh mask.

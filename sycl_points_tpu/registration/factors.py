@@ -2,7 +2,7 @@
 
 Replaces ``algorithms/registration/factor.hpp`` of fateshelled/sycl_points
 (RegType family at factor.hpp:18-32, per-pair linearize kernels at
-factor.hpp:130-482).  TPU-native design change: instead of accumulating a
+factor.hpp:130-482).  Design change: instead of accumulating a
 6x6 ``H`` per work item, every correspondence is expressed as up to three
 *whitened residual rows* ``A [N, 3, 6]``, ``c [N, 3]`` such that
 
@@ -10,7 +10,7 @@ factor.hpp:130-482).  TPU-native design change: instead of accumulating a
 
 which matches the reference exactly (H = J^T M J with M = L L^T and
 A = L^T J), but turns the global reduction into two large matmuls
-``[6, 3N] @ [3N, 6]`` / ``[6, 3N] @ [3N]`` that run on the MXU — the analog
+``[6, 3N] @ [3N, 6]`` / ``[6, 3N] @ [3N]`` — the analog
 of the reference's fused ``sycl::reduction`` pass
 (registration.hpp:513-676).
 
@@ -63,7 +63,7 @@ class WhitenedRows(NamedTuple):
 def se3_jacobian(T: jax.Array, src_pts: jax.Array) -> jax.Array:
     """J = [R.skew(p) | -R] per point -> ``[N, 3, 6]`` (factor.hpp:69-84)."""
     R = T[:3, :3]
-    Rskew = rot_times_skew(R, src_pts)  # VPU, exact f32, one fused kernel
+    Rskew = rot_times_skew(R, src_pts)  # exact f32, one fused kernel
     negR = jnp.broadcast_to(-R, Rskew.shape)
     return jnp.concatenate([Rskew, negR], axis=-1)
 

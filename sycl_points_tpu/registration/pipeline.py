@@ -132,7 +132,7 @@ def align_pipeline(
     deskewed = src
     if deskew_iters == 0:
         # All annealing levels fold into ONE compiled while loop (program
-        # size dominates per-call cost on the TPU runtime).
+        # size dominates per-call cost).
         result = align(
             src, target, target_knn, params.registration,
             initial_guess=T, map_prior=map_prior,

@@ -12,7 +12,7 @@ reduction, 6x6 solve, optimizer bookkeeping, convergence test — is one
 Parity map:
   * params/defaults            -> registration_params.hpp:17-114
   * fused linearize+reduce     -> registration.hpp:513-676 (here: whitened
-                                  rows + two MXU matmuls)
+                                  rows + two matmuls)
   * GenZ adaptive alpha        -> registration.hpp:464-511
   * frozen-correspondence error-only reduction for LM/dogleg acceptance
                                -> registration.hpp:678-789
@@ -423,11 +423,11 @@ def align(
     RobustAligner inside ONE while loop: each level runs <= max_iterations
     from the previous level's pose with fresh optimizer state — identical
     semantics to chained align() calls, but a single compiled loop (program
-    size and per-call overhead are the dominant costs on the TPU runtime).
+    size and per-call overhead are the dominant costs).
 
     ``trace=True`` (static) additionally returns a fixed-size
     ``[max_iterations * n_levels, len(TRACE_COLS)]`` per-iteration trace
-    buffer — the TPU-native equivalent of the reference's verbose mode
+    buffer — the equivalent of the reference's verbose mode
     (registration.hpp:821-827, 856-864, 938-946); unexecuted rows are NaN.
     Returns ``RegistrationResult`` when False, ``(result, trace)`` when True.
     """
@@ -457,11 +457,6 @@ def align(
     from sycl_points_tpu.registration import degenerate as _degen
     from sycl_points_tpu.registration import rotation_constraint as _rotc
 
-    # Prepare the target operands ONCE, outside the while loop (the search
-    # runs every iteration on the same target; see BruteForceKNN.prepped).
-    if hasattr(target_knn, "prepped"):
-        target_knn = target_knn.prepped()
-
     # Coarse-to-fine correspondence: a strided target subset for the first
     # coarse_to_fine_iters total iterations (see RegistrationParams).
     cf_iters = params.coarse_to_fine_iters
@@ -471,10 +466,7 @@ def align(
         knn_coarse = type(target_knn)(
             points=target_knn.points[::stride],
             mask=target_knn.mask[::stride],
-            use_pallas=target_knn.use_pallas,
         )
-        if hasattr(knn_coarse, "prepped"):
-            knn_coarse = knn_coarse.prepped()
 
     def iteration_core(T, r_scale, rot_scale_, total_it):
         if use_cf:

@@ -40,7 +40,7 @@ def _divergence_and_grad(src_covs, tgt_covs, T):
         ],
         axis=-1,
     )
-    J = matvec3(R.T, g_global)  # R^T g per row (exact f32 on the VPU)
+    J = matvec3(R.T, g_global)  # R^T g per row (exact f32)
     return D, J
 
 

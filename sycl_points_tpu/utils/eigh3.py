@@ -1,14 +1,14 @@
 """Batched analytic symmetric 3x3 eigendecomposition and SPD matrix functions.
 
-TPU-native replacement for the device-side eigensolver of the reference
+Replacement for the device-side eigensolver of the reference
 library (``utils/eigen_utils.hpp:443`` symmetric_eigen_decomposition_3x3 and
 the SPD log/exp at ``eigen_utils.hpp:646,664`` in fateshelled/sycl_points).
 
-``jnp.linalg.eigh`` on millions of tiny 3x3 matrices is iterative and slow on
-TPU; this module implements the closed-form (trigonometric) eigenvalue
+``jnp.linalg.eigh`` on millions of tiny 3x3 matrices is iterative and slow;
+this module implements the closed-form (trigonometric) eigenvalue
 formula plus Eberly's robust cross-product eigenvector construction, fully
 vectorized over leading batch dimensions so the whole point cloud is one
-fused VPU computation.
+fused elementwise computation.
 
 All functions accept ``[..., 3, 3]`` symmetric matrices.
 """

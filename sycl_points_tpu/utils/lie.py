@@ -1,10 +1,10 @@
 """Lie-group operations (SO(3)/SE(3)) as batched, jit-friendly JAX functions.
 
-TPU-native re-design of the device-side Lie layer of the reference library
+Re-design of the device-side Lie layer of the reference library
 (``utils/eigen_utils.hpp:851-1038`` in fateshelled/sycl_points): instead of
 per-work-item scalar math, every function here is written over arbitrary
 leading batch dimensions so a whole point cloud of twists is one fused XLA
-computation on the VPU.
+computation.
 
 Conventions (identical to the reference, which follows small_gicp/Sophus):
   * quaternion layout ``[x, y, z, w]``
@@ -187,7 +187,7 @@ def _so3_left_jacobian_terms(omega: jax.Array):
     theta = jnp.sqrt(jnp.maximum(theta_sq, 1e-30))
     Omega = skew(omega)
     # Omega^2 = w w^T - |w|^2 I, computed elementwise (exact in f32; a matmul
-    # here would run in bf16 on the MXU and lose ~3 digits).
+    # here would follow the matmul precision setting, TF32 on the GPU).
     Omega_sq = omega[..., :, None] * omega[..., None, :] - theta_sq[..., None, None] * jnp.eye(
         3, dtype=omega.dtype
     )

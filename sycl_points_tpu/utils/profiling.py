@@ -1,6 +1,6 @@
 """Profiler integration (aux subsystem; SURVEY.md section 5.1).
 
-The reference only has manual stopwatch timing; the TPU-native equivalent
+The reference only has manual stopwatch timing; the equivalent here
 adds `jax.profiler` trace capture around any pipeline section, viewable in
 TensorBoard/Perfetto, plus the same per-stage wall-clock tables
 (:mod:`sycl_points_tpu.utils.timing`).

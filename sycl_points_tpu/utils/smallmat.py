@@ -1,7 +1,7 @@
 """Small-matrix batched linear algebra (3x3 Cholesky, triangular solves, NxN
-PSD solves) — the TPU analog of the device-safe fixed-size solvers in the
+PSD solves) — the analog of the device-safe fixed-size solvers in the
 reference (``utils/eigen_utils.hpp``: cholesky 3x3 at :515, 6x6 solve at
-:571).  Everything is elementwise/fused VPU math; no LAPACK calls in the hot
+:571).  Everything is elementwise/fused math; no LAPACK calls in the hot
 path.
 """
 
@@ -14,17 +14,17 @@ import jax.numpy as jnp
 def matmul3(A: jax.Array, B: jax.Array) -> jax.Array:
     """Batched tiny matmul ``A @ B`` for ``[..., 3, 3]`` operands.
 
-    Broadcast-multiply-sum instead of dot_general: exact f32 on the VPU in
-    one fused kernel.  (``precision='highest'`` matmuls lower to multi-pass
-    bf16 emulation on v5e-class MXUs — more kernels and slower for tiny
-    matrices.)  ``A`` or ``B`` may be a single ``[3, 3]``.
+    Broadcast-multiply-sum instead of dot_general: exact f32 in one fused
+    elementwise kernel, with no matmul-precision setting to get wrong and no
+    library call for a 3x3 product.  ``A`` or ``B`` may be a single
+    ``[3, 3]``.
     """
     return jnp.sum(A[..., :, :, None] * jnp.expand_dims(B, -3), axis=-2)
 
 
 def rotate_mat3(R: jax.Array, C: jax.Array) -> jax.Array:
     """``R C R^T`` over batched ``C [..., 3, 3]``; ``R`` is ``[3, 3]`` or
-    batched ``[..., 3, 3]``.  Exact f32 on the VPU (see :func:`matmul3`)."""
+    batched ``[..., 3, 3]``.  Exact f32 (see :func:`matmul3`)."""
     # tmp[...,i,l] = sum_j R[...,i,j] C[...,j,l]
     tmp = jnp.sum(R[..., :, :, None] * jnp.expand_dims(C, -3), axis=-2)
     # out[...,i,l] = sum_k tmp[...,i,k] R[...,l,k]
@@ -32,7 +32,7 @@ def rotate_mat3(R: jax.Array, C: jax.Array) -> jax.Array:
 
 
 def matvec3(R: jax.Array, v: jax.Array) -> jax.Array:
-    """``R v`` for one ``R [3,3]`` over batched ``v [..., 3]`` (VPU, exact f32)."""
+    """``R v`` for one ``R [3,3]`` over batched ``v [..., 3]`` (exact f32)."""
     return jnp.sum(R * v[..., None, :], axis=-1)
 
 

@@ -71,8 +71,8 @@ def test_radius_search():
 
 
 def test_approx_knn_matches_exact_on_cpu():
-    # approx_max_k lowers to an exact top_k on CPU, so the approximate path
-    # must agree with brute force exactly here (recall on TPU is ~98%).
+    # approx_max_k lowers to an exact top_k on CPU (and GPU), so the
+    # approximate path must agree with brute force exactly here.
     from sycl_points_tpu.ops.knn import approx_knn
 
     rng = np.random.default_rng(11)
@@ -112,3 +112,54 @@ def test_approx_knn_chunked_path():
         np.sort(np.asarray(exact.distances), axis=1),
         rtol=5e-4, atol=1e-4,
     )
+
+
+@pytest.mark.parametrize("k", [16, 20])
+def test_approx_knn_high_k_equals_brute_force(k):
+    """At k >= 16 (the robust-covariance tiers) approx_knn is one exact pass
+    on CPU and GPU: the same neighbour distances as brute force."""
+    from sycl_points_tpu.ops.knn import approx_knn
+
+    rng = np.random.default_rng(k)
+    pts = jnp.asarray(rng.uniform(-10, 10, size=(900, 3)).astype(np.float32))
+    mask = jnp.asarray(rng.random(900) < 0.9)
+    exact = brute_force_knn(pts, mask, pts, k)
+    approx = approx_knn(pts, mask, pts, k, chunk=256)
+    np.testing.assert_allclose(
+        np.asarray(approx.distances), np.asarray(exact.distances), rtol=1e-6, atol=0
+    )
+    d_ref, _ = cKDTree(np.asarray(pts)[np.asarray(mask)]).query(np.asarray(pts), k=k)
+    np.testing.assert_allclose(np.asarray(exact.distances), d_ref**2, rtol=1e-5, atol=1e-9)
+
+
+@pytest.mark.parametrize("case", ["flat", "chunked", "masked", "all_masked", "pose"])
+def test_nn1_against_ckdtree(case):
+    """The k=1 correspondence search (ICP hot loop): exact nearest neighbour
+    and squared distance on the flat path (one chunk) and the chunked scan,
+    with masked targets, with no valid target (distance inf), and with a
+    pose folded into the queries."""
+    rng = np.random.default_rng(29)
+    tgt = rng.uniform(-10, 10, size=(1000, 3)).astype(np.float32)
+    qry = rng.uniform(-10, 10, size=(300, 3)).astype(np.float32)
+    mask = np.ones(1000, bool)
+    chunk = 8192 if case == "flat" else 256
+    pose = None
+    if case == "masked":
+        mask[::3] = False
+    if case == "all_masked":
+        mask[:] = False
+    if case == "pose":
+        pose = lie.se3_exp(jnp.asarray([0.1, -0.2, 0.3, 1.0, 2.0, -0.5], jnp.float32))
+    res = BruteForceKNN(jnp.asarray(tgt), jnp.asarray(mask)).search(
+        jnp.asarray(qry), 1, pose=pose, chunk=chunk
+    )
+    idx = np.asarray(res.indices[:, 0])
+    d2 = np.asarray(res.distances[:, 0])
+    if case == "all_masked":
+        assert np.all(np.isinf(d2))
+        return
+    q = qry if pose is None else qry @ np.asarray(pose)[:3, :3].T + np.asarray(pose)[:3, 3]
+    valid = np.nonzero(mask)[0]
+    d_ref, i_ref = cKDTree(tgt[valid]).query(q)
+    np.testing.assert_array_equal(idx, valid[i_ref])
+    np.testing.assert_allclose(d2, d_ref**2, rtol=1e-5, atol=1e-6)

@@ -7,7 +7,6 @@ from sycl_points_tpu.points import io, native_io
 from sycl_points_tpu.points.conversion import read_kitti_bin
 
 RNG = np.random.default_rng(23)
-REF = "/root/reference/cpp/data"
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -16,9 +15,15 @@ def built():
         pytest.skip("native library unavailable")
 
 
-def test_native_ply_matches_numpy_reader():
-    a = native_io.read_ply(f"{REF}/source.ply")
-    b = io.read_ply(f"{REF}/source.ply")
+def test_native_ply_matches_numpy_reader(tmp_path):
+    n = 5000
+    p = str(tmp_path / "scan.ply")
+    io.write_ply(p, {
+        "points": (RNG.normal(size=(n, 3)) * 20.0).astype(np.float32),
+        "intensities": RNG.uniform(0, 255, size=n).astype(np.float32),
+    }, binary=True)
+    a = native_io.read_ply(p)
+    b = io.read_ply(p)
     np.testing.assert_allclose(a["points"], b["points"])
     np.testing.assert_allclose(a["intensities"], b["intensities"])
 

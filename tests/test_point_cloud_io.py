@@ -10,7 +10,6 @@ from sycl_points_tpu.points import io
 from sycl_points_tpu.points.point_cloud import PointCloud, compact_device, filter_by_mask
 
 RNG = np.random.default_rng(11)
-REF_DATA = "/root/reference/cpp/data"
 
 
 def make_cloud_dict(n=100):
@@ -48,12 +47,29 @@ def test_nonfinite_points_skipped(tmp_path):
     assert back["points"].shape[0] == 8
 
 
-def test_read_bundled_scan_pair():
-    src = io.read_file(f"{REF_DATA}/source.ply")
-    tgt = io.read_file(f"{REF_DATA}/target.ply")
+def write_scan_ply(path, n, seed):
+    """A seeded LiDAR-like scan (unit rays x ranges 1-80 m, intensities) as
+    binary PLY, the layout of the reference's bundled scan pair."""
+    rng = np.random.default_rng(seed)
+    rays = rng.normal(size=(n, 3))
+    rays /= np.linalg.norm(rays, axis=1, keepdims=True)
+    pts = (rays * rng.uniform(1.0, 80.0, size=(n, 1))).astype(np.float32)
+    io.write_ply(path, {
+        "points": pts,
+        "intensities": rng.uniform(0, 255, size=n).astype(np.float32),
+    }, binary=True)
+    return pts
+
+
+def test_read_bundled_scan_pair(tmp_path):
+    pts_s = write_scan_ply(str(tmp_path / "source.ply"), 69792, seed=1)
+    write_scan_ply(str(tmp_path / "target.ply"), 65000, seed=2)
+    src = io.read_file(str(tmp_path / "source.ply"))
+    tgt = io.read_file(str(tmp_path / "target.ply"))
     assert src["points"].shape == (69792, 3)
     assert "intensities" in src
     assert tgt["points"].shape[0] > 60000
+    np.testing.assert_array_equal(src["points"], pts_s)
     # sane LiDAR ranges
     r = np.linalg.norm(src["points"], axis=1)
     assert np.isfinite(src["points"]).all()

@@ -159,7 +159,7 @@ def test_coarse_to_fine_matches_exact():
     T_true = np.asarray(lie.se3_exp(jnp.asarray([0.02, -0.01, 0.03, 0.15, -0.1, 0.05])))
     src = featurize((tgt_pts - T_true[:3, 3]) @ T_true[:3, :3])
 
-    knn = BruteForceKNN.build(tgt, use_pallas=False)
+    knn = BruteForceKNN.build(tgt)
     base = RegistrationParams(reg_type=RegType.GICP, max_iterations=30)
     exact = align(src, tgt, knn, base)
     cf = align(src, tgt, knn,

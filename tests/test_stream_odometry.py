@@ -368,8 +368,8 @@ def test_stream_paced_offered_load():
     world = _world()
     base = _small_params()
     # map sized to NOT grow during the run: mid-stream growth compiles are a
-    # separate concern covered by StreamServerConfig.precompile_growth_capacity
-    # and the TPU growth artifacts; at CPU-test scale a growth stall (~10 s
+    # separate concern covered by StreamServerConfig.precompile_growth_capacity;
+    # at CPU-test scale a growth stall (~10 s
     # compile on 2 weak cores) would drown the pacing margins being tested
     params = dc.replace(
         base, submap=dc.replace(base.submap, map_capacity=1 << 15)
